@@ -1,15 +1,14 @@
-"""Typed columnar arrays resident in TPU HBM.
+"""Typed columnar arrays resident in device memory.
 
-TPU-native redesign of the reference's array layer
-(`/root/reference/crates/array/src/array/primitive_array_gpu.rs`):
+Redesign of the reference's array layer
+(`crates/array/src/array/primitive_array_gpu.rs`):
 
 - ``PrimitiveArrayGpu<T>`` (`primitive_array_gpu.rs:12-19`) — {wgpu data buffer,
   device, len, optional null bitmap} — becomes :class:`PrimitiveArray`: a padded
   dense `jax.Array` value buffer + optional packed-uint32 validity buffer + logical
-  length.  Buffers are padded to whole TPU tiles (`config.pad_unit` elements,
-  8x128 f32) instead of the reference's 4-byte alignment
-  (`primitive_array_gpu.rs:28`), so Pallas kernels can view any column as
-  ``(n//128, 128)`` blocks without repadding.
+  length.  Buffers are padded to a multiple of `config.pad_unit` elements
+  instead of the reference's 4-byte alignment (`primitive_array_gpu.rs:28`), so
+  one compiled program serves every length that rounds to the same size.
 - ``from_optional_slice`` (`primitive_array_gpu.rs:22-55`): None -> default value in
   the data buffer + a cleared validity bit, exactly as the reference.
 - ``values``/``raw_values`` readback (`primitive_array_gpu.rs:76-104`) become
@@ -34,7 +33,7 @@ from .validity import NullBitBuffer
 
 
 def pad_len(n: int) -> int:
-    """Round a logical length up to whole TPU tiles."""
+    """Round a logical length up to a multiple of `config.pad_unit`."""
     u = config.pad_unit
     return ((n + u - 1) // u) * u if n else 0
 

@@ -1,10 +1,10 @@
 """Bit-packed boolean arrays.
 
-TPU-native redesign of ``BooleanArrayGPU``
-(`/root/reference/crates/array/src/array/boolean_gpu.rs:15-21`): values are packed
+Redesign of ``BooleanArrayGPU``
+(`crates/array/src/array/boolean_gpu.rs:15-21`): values are packed
 LSB-first into uint32 words, 1 bit per row (matching the Arrow layout and the
 reference's choice), stored in HBM as a `jax.Array` of words.  Logical ops on
-booleans operate directly on the word buffer (32 rows per lane op) — the TPU
+booleans operate directly on the word buffer (32 rows per lane op) — the
 equivalent of the reference routing boolean and/or/xor/not through its u32 shaders
 (`logical/src/boolean.rs:45-104`).
 

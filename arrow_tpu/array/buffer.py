@@ -1,6 +1,6 @@
 """Opaque device buffer handle.
 
-≙ the reference's ``ArrowGpuBuffer`` (`/root/reference/crates/array/src/array/buffer.rs:5-25`),
+≙ the reference's ``ArrowGpuBuffer`` (`crates/array/src/array/buffer.rs:5-25`),
 a refcounted ``Arc<wgpu::Buffer>``.  `jax.Array` is already an immutable refcounted
 device buffer, so this wrapper only adds the Arrow Buffer API surface.
 """

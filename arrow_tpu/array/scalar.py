@@ -1,7 +1,7 @@
 """Dynamic scalar values and operands.
 
 ≙ the reference's ``ScalarValue`` / ``Operand`` / ``ScalarArray``
-(`/root/reference/crates/array/src/kernels/mod.rs:7-23`,
+(`crates/array/src/kernels/mod.rs:7-23`,
 `array/src/utils/mod.rs:1-31`).
 """
 

@@ -1,7 +1,7 @@
 """Validity (null) bitmaps.
 
-TPU-native redesign of the reference's null layer
-(`/root/reference/crates/array/src/array/null_bit_buffer.rs`):
+Redesign of the reference's null layer
+(`crates/array/src/array/null_bit_buffer.rs`):
 
 - ``BooleanBufferBuilder`` (`null_bit_buffer.rs:10-62`) — CPU-side LSB-first bit
   builder — becomes :class:`BitBufferBuilder` (numpy-backed, vectorized, with an

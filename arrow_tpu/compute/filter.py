@@ -5,16 +5,13 @@ compaction, 100M rows, 1-99% selectivity, >=80% HBM roofline").  The reference
 only provides the seeds: `take` (gather) and bit-packed masks (SURVEY.md §3.6
 "these are the seeds of the build's filter/compaction operator").
 
-Design (TPU-native): ONE fused XLA program computes
+Design: ONE fused XLA program computes
   select = mask_value_words & mask_validity_words   (null mask rows -> dropped,
                                                      Arrow filter semantics)
   count  = popcount(select)
   out    = stable partition: multi-operand stable sort on the 1-bit select key,
            moving selected rows (data + validity bits together) to the front in
            original order.
-Compaction-as-sort is the TPU-native choice: measured on v5e, XLA's sort
-emitter moves 4M rows in ~8ms where the scatter formulation takes ~24ms and a
-searchsorted/gather formulation ~700ms (random HBM gathers serialize).
 The result buffer has input capacity; only the (host-synced) count is the
 logical length — this keeps the compiled program shape-stable across
 selectivities, so the 1-99% selectivity sweep reuses one executable.
@@ -23,7 +20,7 @@ selectivities, so the 1-99% selectivity sweep reuses one executable.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple, Union
+from typing import Tuple, Union
 
 import jax
 import jax.lax as lax
@@ -70,8 +67,6 @@ def _filter_program(n_padded: int, length: int, jdtype_str: str, has_validity: b
 
 def filter_indices(mask: BooleanArray) -> Tuple[ArrowArrayBase, int]:
     """Selected row indices (UInt32Array) + count; null mask rows excluded."""
-    from ..ops.kernel import AV
-
     from ..utils.scans import stable_partition
 
     @functools.partial(jax.jit, static_argnums=(2,))
@@ -91,145 +86,12 @@ def filter_indices(mask: BooleanArray) -> Tuple[ArrowArrayBase, int]:
     return make_array(out, None, k, dt.ArrowType.UINT32, mask.device), k
 
 
-def _spread_mask_words(words):
-    """Double every mask bit: bit i of `words` -> bits 2i, 2i+1 of the result.
-
-    Lets 64-bit columns ride the 32-bit compaction kernel as an interleaved
-    u32 plane of length 2n — the stable network keeps limb pairs adjacent, so
-    no extra limb-split data pass is needed.
-    """
-    def morton(x):  # spread the low 16 bits of x with zero gaps
-        x = (x | (x << 8)) & jnp.uint32(0x00FF00FF)
-        x = (x | (x << 4)) & jnp.uint32(0x0F0F0F0F)
-        x = (x | (x << 2)) & jnp.uint32(0x33333333)
-        x = (x | (x << 1)) & jnp.uint32(0x55555555)
-        return x | (x << 1)
-
-    lo = morton(words & jnp.uint32(0xFFFF))
-    hi = morton(words >> 16)
-    return jnp.stack([lo, hi], axis=-1).reshape(-1)
-
-
-def _pallas_col_eligible(col) -> bool:
-    n = col.data.shape[0]
-    if col.dtype is dt.ArrowType.BOOL:
-        return n * 32 % 8192 == 0
-    size = dt.item_size(col.dtype)
-    if size == 8:
-        return 2 * n % 8192 == 0
-    return size == 4 and n % 8192 == 0
-
-
-@functools.lru_cache(maxsize=None)
-def _pallas_filter_program(signature):
-    """Fused predicate+compaction program over the Pallas kernel.
-
-    signature: tuple per column of (kind, has_validity) with kind in
-    {"w32", "w64", "bool"}.  Every 32-bit/bool column shares ONE kernel call
-    (one mask unpack + rank + network control stream); 64-bit columns share a
-    second call on the bit-doubled mask.
-    """
-    from .kernels.compaction3 import compact_multi_pallas
-
-    def run(mask_words, mask_validity, *flat_cols):
-        select = _select_words(mask_words, mask_validity)
-        count = B.popcount_words(select).astype(jnp.uint32)
-
-        v32, w32, v64 = [], [], []  # (col_index, slot) routing
-        for ci, ((kind, has_validity), (data, validity)) in enumerate(
-            zip(signature, _pairs(flat_cols))
-        ):
-            if kind == "w64":
-                v64.append((ci, lax.bitcast_convert_type(data, jnp.uint32).reshape(-1)))
-            elif kind == "bool":
-                w32.append((ci, data))
-            else:
-                v32.append((ci, data))
-            if has_validity:
-                w32.append((~ci, validity))  # ~ci marks a validity plane
-
-        outs: dict = {}
-        GROUP = 8  # planes per kernel call (VMEM window budget)
-        while v32 or w32:
-            cv, v32 = v32[:GROUP], v32[GROUP:]
-            cw, w32 = w32[: GROUP - len(cv)], w32[GROUP - len(cv):]
-            vres, wres, _ = compact_multi_pallas(
-                tuple(p for _, p in cv), tuple(p for _, p in cw), select
-            )
-            for (ci, _), o in zip(cv, vres):
-                outs[ci] = o
-            for (ci, _), o in zip(cw, wres):
-                outs[ci] = o
-        if v64:
-            select2 = _spread_mask_words(select)
-            while v64:
-                cv, v64 = v64[:GROUP], v64[GROUP:]
-                vres, _, _ = compact_multi_pallas(
-                    tuple(p for _, p in cv), (), select2
-                )
-                for (ci, _), o in zip(cv, vres):
-                    outs[ci] = o
-
-        results = []
-        for ci, ((kind, has_validity), (data, validity)) in enumerate(
-            zip(signature, _pairs(flat_cols))
-        ):
-            n = data.shape[0] * (32 if kind == "bool" else 1)
-            # zero-padding invariant: the kernel zeroes rows >= count
-            # in-kernel (compaction3 epilogue) — no masking pass needed here
-            if kind == "w64":
-                o = lax.bitcast_convert_type(
-                    outs[ci][: 2 * n].reshape(n, 2), data.dtype
-                )
-            elif kind == "bool":
-                o = B.pack_bits(outs[ci][:n] != 0)
-            else:
-                o = outs[ci][:n]
-            results.append(o)
-            if has_validity:
-                results.append(B.pack_bits(outs[~ci][:n] != 0))
-            else:
-                results.append(None)
-        return count, results
-
-    return jax.jit(run)
-
-
-def _col_kind(col) -> str:
-    if col.dtype is dt.ArrowType.BOOL:
-        return "bool"
-    return "w64" if dt.item_size(col.dtype) == 8 else "w32"
-
-
-def _filter_pallas(cols, mask):
-    """Pallas block-compaction path (any mix of 32/64-bit/bool, nullable).
-
-    Streams data once through VMEM (log-shift hole-filling network, pipelined
-    DMA) and writes compacted blocks at dynamic offsets, zeroing the tail
-    in-kernel — measured 12.25 Grows/s through this program at 134M rows on
-    v5e (BENCH_r03) vs ~0.6 for the stable-partition sort program.
-    """
-    signature = tuple((_col_kind(c), c.validity is not None) for c in cols)
-    flat = []
-    for c in cols:
-        flat.extend((c.data, c.validity))
-    prog = _pallas_filter_program(signature)
-    count, results = prog(mask.data, mask.validity, *flat)
-    k = int(count)
-    out = [
-        make_array(d, v, k, c.dtype, c.device)
-        for c, d, v in zip(cols, results[::2], results[1::2])
-    ]
-    return out, k
-
-
 @functools.lru_cache(maxsize=None)
 def _batch_filter_program(signature):
     """One multi-operand stable partition carrying every column of a batch.
 
     signature: tuple of (is_bool, has_validity) per column.  A single fused
-    sort moves all columns at once — the gather-per-column formulation costs
-    ~4.5x more on TPU (scans.py cost model: gather ~36ms vs sort ~8ms at 4M).
+    sort moves all columns at once, with no per-column gathers.
     """
     from ..utils.scans import stable_partition
 
@@ -288,32 +150,15 @@ def filter(
 ) -> Union[ArrowArrayBase, RecordBatch]:
     """Compact rows where mask is true (and valid).
 
-    method: "pallas" = the hand-written block-compaction kernel (pipelined
-    DMA, in-kernel mask unpack + tail zeroing; any mix of 32/64-bit/bool
-    columns, nullable; measured 12.25 Grows/s at 134M on v5e); "sort" = the stable-
-    partition XLA program; "auto" = pallas when eligible on TPU, else sort.
-    For a RecordBatch, every column shares one kernel call (one mask unpack +
-    rank + network control stream) — no per-column gathers.
+    method: "auto" or "sort" — both run the stable-partition XLA program.
+    For a RecordBatch, every column rides one fused sort.
     """
+    if method not in ("auto", "sort"):
+        raise OperationNotSupported(f"unknown filter method {method!r}")
     if mask.dtype is not dt.ArrowType.BOOL:
         raise OperationNotSupported("filter mask must be a BooleanArray")
     if len(data) != len(mask):
         raise OperationNotSupported("filter requires equal lengths")
-    cols = list(data.columns().values()) if isinstance(data, RecordBatch) else [data]
-    pallas_ok = all(_pallas_col_eligible(c) for c in cols) and len(cols) >= 1
-    if method == "auto":
-        method = (
-            "pallas" if (pallas_ok and jax.default_backend() == "tpu") else "sort"
-        )
-    if method == "pallas":
-        if not pallas_ok:
-            raise OperationNotSupported(
-                "pallas filter path requires 8192-padded column buffers"
-            )
-        outs, k = _filter_pallas(cols, mask)
-        if isinstance(data, RecordBatch):
-            return RecordBatch(dict(zip(data.columns().keys(), outs)))
-        return outs[0]
     if isinstance(data, RecordBatch):
         return _filter_batch(data, mask)
 

@@ -5,10 +5,8 @@ SUM/COUNT/MIN/MAX, 1K-100M distinct keys incl. skew, >=80% HBM roofline").  The
 reference's only reduction-class kernels — Sum and any/all (SURVEY.md §2 #13/#15)
 — are the seeds of this tier.
 
-Design (TPU-native): grouping is sort-based inside one fused XLA program,
-built from the three primitives that are actually fast on TPU (sorts and
-scans — measured: 4M-row stable sort ~8ms where a random gather is ~36ms and
-a scatter ~24ms; see utils/scans.py):
+Design: grouping is sort-based inside one fused XLA program, built from
+sorts and scans (utils/scans.py):
 
   1. ONE stable key sort carrying every value column (and its validity flags)
      as extra sort operands — no post-sort gathers;
@@ -31,7 +29,7 @@ count (standard SQL/Arrow semantics, documented extension).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import jax
 import jax.lax as lax
@@ -56,7 +54,7 @@ def _valid_bools(data, validity, length):
 
 
 def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
-                 merge_len=None, dense=False, presorted=False):
+                 dense=False):
     """Shared sort+segmented-scan group-by core (traceable).
 
     key_data: (n,) keys; kvalid: (n,) bool valid-key mask;
@@ -64,45 +62,17 @@ def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
     entries of agg_spec.  Returns (num_groups, out_keys, [out_agg...]) with
     group rows compacted to the front in ascending key order.
 
-    merge_len (static int): when set, keys are non-null 32-bit and every row
-    < merge_len is valid — the sort runs on the Pallas streaming merge kernel
-    (kernels/merge.py) with values + validity riding as 32-bit planes,
-    instead of the O(log^2 n) full-length `lax.sort`.
-
     dense (static bool): every row of every buffer is valid (no key/value
     nulls, no padding) — the sort drops the rank key and the per-value
     validity operands (both constant), cutting the dominant multi-operand
     sort cost by ~half for the common no-null full-buffer case.
     """
-    from ..utils.scans import compact_rows, segment_ends, segmented_scan
+    from ..utils.scans import segment_ends, segmented_scan, stable_partition
 
     n = key_data.shape[0]
-    idx32 = lax.broadcasted_iota(jnp.int32, (n,), 0)
-    if merge_len is not None:
-        from .kernels.merge import sort_kv_pallas
-
-        planes = []
-        encode = []
-        for vdata, vvalid in val_entries:
-            if vdata.dtype.itemsize < 4:
-                planes.append(vdata.astype(jnp.int32))
-                encode.append(vdata.dtype)
-            else:
-                planes.append(vdata)
-                encode.append(None)
-            planes.append(vvalid.astype(jnp.int32))
-        skey, outs = sort_kv_pallas(key_data, tuple(planes), length=merge_len)
-        sorted_ = [None, skey]
-        for edt, (sv, sf) in zip(encode, zip(outs[::2], outs[1::2])):
-            sorted_.append(sv.astype(edt) if edt is not None else sv)
-            sorted_.append(sf != 0)
-        in_group = idx32 < jnp.int32(merge_len)
-    elif dense:
+    if dense:
         operands = [key_data] + [vdata for vdata, _ in val_entries]
-        if presorted:  # caller already key-grouped the planes (radix chain)
-            raw = operands
-        else:
-            raw = lax.sort(operands, num_keys=1, is_stable=True)
+        raw = lax.sort(operands, num_keys=1, is_stable=True)
         skey = raw[0]
         true_plane = jnp.ones((n,), jnp.bool_)
         sorted_ = [None, skey]
@@ -127,13 +97,13 @@ def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
 
     results = []
     post = []  # per-result dtype conversion applied AFTER compaction: count
-    # scans run in int32 (counts <= n < 2^31) so they ride the cheap 32-bit
-    # scan/compaction planes, widening to the Arrow INT64 result at the end
+    # scans run in int32 (counts <= n < 2^31), widening to the Arrow INT64
+    # result at the end
     vi = 0
     for agg, val_dtype_str, _ in agg_spec:
         if agg == "count_all":
             seg_cnt = segmented_scan(
-                in_group.astype(jnp.int32), starts, lambda a, b: a + b, op="add"
+                in_group.astype(jnp.int32), starts, lambda a, b: a + b
             )
             results.append(seg_cnt)
             post.append(jnp.int64)
@@ -147,13 +117,13 @@ def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
             if vdt == jnp.uint64:
                 acc_dt = jnp.uint64
             contrib = jnp.where(svalid, svals.astype(acc_dt), jnp.asarray(0, acc_dt))
-            ssum = segmented_scan(contrib, starts, lambda a, b: a + b, op="add")
+            ssum = segmented_scan(contrib, starts, lambda a, b: a + b)
             if agg == "sum":
                 results.append(ssum.astype(vdt))
                 post.append(None)
             else:
                 cnt = segmented_scan(
-                    svalid.astype(jnp.int32), starts, lambda a, b: a + b, op="add"
+                    svalid.astype(jnp.int32), starts, lambda a, b: a + b
                 )
                 results.append(
                     ssum.astype(jnp.float64)
@@ -163,25 +133,25 @@ def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
         elif agg == "count":
             results.append(
                 segmented_scan(
-                    svalid.astype(jnp.int32), starts, lambda a, b: a + b, op="add"
+                    svalid.astype(jnp.int32), starts, lambda a, b: a + b
                 )
             )
             post.append(jnp.int64)
         elif agg == "min":
             init = jnp.inf if jnp.issubdtype(vdt, jnp.floating) else jnp.iinfo(vdt).max
             contrib = jnp.where(svalid, svals, jnp.asarray(init, vdt))
-            results.append(segmented_scan(contrib, starts, jnp.minimum, op="min"))
+            results.append(segmented_scan(contrib, starts, jnp.minimum))
             post.append(None)
         elif agg == "max":
             init = -jnp.inf if jnp.issubdtype(vdt, jnp.floating) else jnp.iinfo(vdt).min
             contrib = jnp.where(svalid, svals, jnp.asarray(init, vdt))
-            results.append(segmented_scan(contrib, starts, jnp.maximum, op="max"))
+            results.append(segmented_scan(contrib, starts, jnp.maximum))
             post.append(None)
         else:
             raise OperationNotSupported(f"unknown aggregation {agg!r}")
 
     # compact (key, results) at group-end rows to the front, in key order
-    parts = compact_rows(ends, [skey, *results])
+    parts = stable_partition(ends, [skey, *results])
     live = lax.broadcasted_iota(jnp.uint32, (n,), 0) < num_groups
     out_keys = jnp.where(live, parts[0], jnp.zeros_like(parts[0]))
     out_aggs = [
@@ -194,9 +164,9 @@ def groupby_core(key_data, kvalid, val_entries, agg_spec, length_hint=None,
 
 @functools.lru_cache(maxsize=None)
 def _groupby_program(spec: tuple):
-    """spec: (n_padded, length, key_has_validity, use_merge,
+    """spec: (n_padded, length, key_has_validity,
     ((agg, val_dtype, val_has_validity), ...))"""
-    n_padded, length, key_has_validity, use_merge, agg_spec = spec
+    n_padded, length, key_has_validity, agg_spec = spec
 
     def run(key_data, key_validity, *val_bufs):
         kvalid = _valid_bools(key_data, key_validity, length)
@@ -215,483 +185,17 @@ def _groupby_program(spec: tuple):
             and all(not hv for _a, _d, hv in agg_spec)
         )
         num_groups, out_keys, out_aggs = groupby_core(
-            key_data, kvalid, val_entries, agg_spec,
-            merge_len=length if use_merge else None,
-            dense=dense,
+            key_data, kvalid, val_entries, agg_spec, dense=dense,
         )
         return (num_groups, out_keys, *out_aggs)
 
     return jax.jit(run)
 
 
-def _merge_sort_ok(keys, agg_spec_cols) -> bool:
-    """Whether the group-by sort rides the Pallas merge kernel.  Opt-in via
-    ARROW_TPU_FORCE_MERGE=1 only: measured at 128M rows the merge kernel is
-    slower than the fused multi-operand lax.sort (see sort.py
-    _merge_eligible); the Pallas wins that stay on by default here are the
-    streaming segmented scans and the compaction (compact_rows)."""
-    import os
-
-    if os.environ.get("ARROW_TPU_FORCE_MERGE") != "1":
-        return False
-    if keys.validity is not None or keys.data.shape[0] % 8192 != 0:
-        return False
-    if keys.data.dtype not in (jnp.int32, jnp.uint32):
-        return False
-    return all(c is None or dt.item_size(c.dtype) <= 4 for c in agg_spec_cols)
-
-
-def _mxu_path_eligible(keys, aggregations) -> bool:
-    """Static eligibility for the MXU one-hot kernel (ranges checked later)."""
-    if keys.validity is not None or keys.data.shape[0] % 8192 != 0:
-        return False
-    if not dt.is_integer(keys.dtype):
-        return False
-    for _name, col, kind in aggregations:
-        if kind not in ("sum", "count", "mean"):
-            return False
-        if col is not None and (
-            col.validity is not None
-            or not dt.is_integer(col.dtype)
-            # the kernel carries values as i32 limb sources
-            # (groupby_mxu.py:253 astype(int32)): 64-bit columns would
-            # silently truncate, and u64 maxima >= 2^63 wrap negative in the
-            # i64 range check — exclude them statically
-            or dt.info(col.dtype).item_size > 4
-        ):
-            return False
-    return True
-
-
-# ---------------------------------------------------------------------------
-# partitioned region-MXU path: dense domains beyond 4096 (round 4)
-# ---------------------------------------------------------------------------
-
-
-def _partition_by_class(planes, nbits: int):
-    """Stable LSB-first binary splits on key bits [12, 12+nbits): groups rows
-    by class = key>>12 (bit-reversed class order; each class contiguous).
-
-    XLA ladder formulation (traceable, used off-TPU); the TPU path in
-    `_partition_groupby_program` rides `kernels/radix.radix_sort_chain`
-    over the same bits instead (r5): each Pallas pass reads its
-    predecessor's stream outputs directly — no per-split roll-combine (the
-    r4 formulation paid read 8n + write 16n + combine 24n bytes per plane
-    per split; the chain pays 8n + 8n) and no tail-zero epilogues, with ONE
-    final combine re-establishing the flat layout."""
-    n = planes[0].shape[0]
-    from ..utils.scans import stable_partition
-
-    def split(planes, bit):
-        mask0 = ((planes[0] >> bit) & 1) == 0
-        c0 = jnp.sum(mask0, dtype=jnp.int32)
-        live0 = lax.broadcasted_iota(jnp.int32, (n,), 0) < c0
-        o0 = [
-            jnp.where(live0, o, jnp.zeros_like(o))
-            for o in stable_partition(mask0, list(planes))
-        ]
-        c1 = jnp.int32(n) - c0
-        live1 = lax.broadcasted_iota(jnp.int32, (n,), 0) < c1
-        o1 = [
-            jnp.where(live1, o, jnp.zeros_like(o))
-            for o in stable_partition(jnp.logical_not(mask0), list(planes))
-        ]
-        return tuple(a + jnp.roll(b, c0) for a, b in zip(o0, o1))
-
-    for b in range(nbits):
-        planes = split(planes, 12 + b)
-    return planes
-
-
-@functools.lru_cache(maxsize=None)
-def _partition_prep_program(spec: tuple):
-    (n, length, has_garbage, rslots) = spec
-
-    def run(key_data, *val_bufs):
-        keyp = key_data.astype(jnp.int32)
-        if has_garbage:
-            live = lax.broadcasted_iota(jnp.int32, (n,), 0) < jnp.int32(length)
-            keyp = jnp.where(live, keyp + jnp.int32(rslots), jnp.int32(0))
-        return (keyp, *[v.astype(jnp.int32) for v in val_bufs])
-
-    return jax.jit(run)
-
-
-@functools.lru_cache(maxsize=None)
-def _partition_split_program(spec: tuple):
-    """CPU/XLA fallback partition as ONE jitted program (the TPU path runs
-    the Pallas radix chain as host-composed dispatches instead — fusing 8+
-    Pallas passes plus the region kernel into one program SIGSEGVs the
-    remote Mosaic compile helper, docs/mosaic_notes.md r4)."""
-    (n, nbits) = spec
-
-    def run(*planes):
-        return _partition_by_class(tuple(planes), nbits)
-
-    return jax.jit(run)
-
-
-@functools.lru_cache(maxsize=None)
-def _partition_region_program(spec: tuple):
-    (nclass, has_garbage, rslots, nlimbs) = spec
-    from .kernels.groupby_region import groupby_region_pallas
-
-    def run(kp, *vps):
-        vps = vps or (jnp.zeros_like(kp),)
-        cnt = None
-        sums = []
-        for vi, vp in enumerate(vps):
-            nlimb = nlimbs[vi] if vi < len(nlimbs) else 1
-            c, tot = groupby_region_pallas(kp, vp, nlimb=nlimb, nclass=nclass)
-            cnt = c if cnt is None else cnt
-            sums.append(tot)
-        if has_garbage:
-            cnt = cnt[rslots:]
-            sums = [s[rslots:] for s in sums]
-        return cnt, *sums
-
-    return jax.jit(run)
-
-
-def _partition_groupby_program(spec: tuple):
-    """(n, length, dom_bits, nlimbs) -> host-composed (count, sums) over the
-    dense domain [0, 2^dom_bits): prep -> class partition (Pallas radix
-    chain on TPU, XLA splits elsewhere) -> streaming region-MXU kernel.
-
-    Keys are shifted up one class (class 0 = garbage: padded rows), split
-    into class-contiguous order, aggregated by `groupby_region_pallas`, and
-    the garbage class dropped."""
-    (n, length, dom_bits, nlimbs) = spec  # nlimbs: tuple, one per val column
-    from .kernels.groupby_region import SLOTS as RSLOTS
-
-    # the split passes route ALL rows (counts sum to n), so garbage only
-    # exists when the buffer carries padding (length < n) — full buffers
-    # skip the shift and its extra split bit entirely
-    has_garbage = length < n
-    nclass = (1 << dom_bits) // RSLOTS + (1 if has_garbage else 0)
-    nbits = max(1, (nclass - 1).bit_length())
-    prep = _partition_prep_program((n, length, has_garbage, RSLOTS))
-    region = _partition_region_program((nclass, has_garbage, RSLOTS, nlimbs))
-    use_chain = jax.default_backend() == "tpu" and n % 8192 == 0
-
-    def run(key_data, *val_bufs):
-        planes = prep(key_data, *val_bufs)
-        if use_chain:
-            from .kernels.radix import radix_sort_chain
-
-            planes = radix_sort_chain(planes, range(12, 12 + nbits), n)
-        else:
-            planes = _partition_split_program((n, nbits))(*planes)
-        return region(*planes)
-
-    return run
-
-
-@functools.lru_cache(maxsize=None)
-def _range_check_program(nvals: int):
-    def run(keys, *vals):
-        lo = jnp.min(keys).astype(jnp.int64)
-        hi = jnp.max(keys).astype(jnp.int64)
-        vmaxes = [jnp.max(v).astype(jnp.int64) for v in vals]
-        vmins = [jnp.min(v).astype(jnp.int64) for v in vals]
-        return lo, hi, *vmaxes, *vmins
-
-    return jax.jit(run)
-
-
-def _hash_aggregate_mxu(keys, aggregations, key_domain=None, value_bits=None):
-    """Dense-domain fast path: one-hot MXU matmuls (kernels/groupby_mxu.py).
-
-    Returns None when the data ranges disqualify it (keys outside [0, 4096)
-    or negative values) so the caller falls back to the sort path.
-
-    key_domain=(lo, hi) is a caller GUARANTEE that keys lie in [lo, hi) and
-    values are non-negative; with it (plus value_bits, the max value bit
-    width, default 32) the range-check program and its host sync are skipped
-    entirely — the decision is static and the path stays traceable inside a
-    pipeline (VERDICT r2 weak #7).
-    """
-    from .kernels.groupby_mxu import SLOTS, groupby_dense_pallas, nlimbs_for_bits
-
-    val_cols = []
-    col_ids = {}
-    for _name, col, _kind in aggregations:
-        if col is not None and id(col) not in col_ids:
-            col_ids[id(col)] = len(val_cols)
-            val_cols.append(col)
-    if key_domain is not None:
-        lo, hi = key_domain
-        if lo < 0 or hi > SLOTS:
-            return None
-        vmaxes = [(1 << (value_bits or 32)) - 1] * len(val_cols)
-    else:
-        rng = _range_check_program(len(val_cols))(
-            keys.data, *[c.data for c in val_cols]
-        )
-        kmin, kmax = int(rng[0]), int(rng[1])
-        vmaxes = [int(v) for v in rng[2 : 2 + len(val_cols)]]
-        vmins = [int(v) for v in rng[2 + len(val_cols) :]]
-        if kmin < 0 or kmax >= SLOTS or any(v < 0 for v in vmins):
-            return None
-
-    count = None
-    sums: Dict[int, jnp.ndarray] = {}
-    for ci, col in enumerate(val_cols):
-        nlimb = nlimbs_for_bits(max(vmaxes[ci], 1).bit_length())
-        cnt, tot = groupby_dense_pallas(keys.data, col.data, nlimb=nlimb, length=keys.length)
-        count = cnt if count is None else count
-        sums[id(col)] = tot
-    if count is None:  # pure count(*): any operand works, sums unused
-        count, _ = groupby_dense_pallas(keys.data, keys.data, nlimb=1, length=keys.length)
-
-    occupied = count > 0
-    num_groups = int(jnp.sum(occupied))
-    order = jnp.nonzero(occupied, size=SLOTS, fill_value=0)[0]
-    device = keys.device
-
-    from ..array.array import pad_len
-
-    # zero-padding invariant: rows >= num_groups of the padded buffers must be
-    # zero (order's fill_value=0 would replicate slot 0's live values there)
-    live = lax.broadcasted_iota(jnp.int32, (SLOTS,), 0) < num_groups
-
-    def _wrap(buf, dtype):
-        buf = jnp.where(live, buf, jnp.zeros_like(buf))
-        buf = jnp.pad(buf, (0, pad_len(SLOTS) - SLOTS))  # buffer invariant
-        return make_array(buf, None, num_groups, dtype, device)
-
-    out_keys = order.astype(dt.info(keys.dtype).numpy)
-    cols: Dict[str, ArrowArrayBase] = {"key": _wrap(out_keys, keys.dtype)}
-    cnt_g = count[order].astype(jnp.int64)
-    for name, col, kind in aggregations:
-        if kind == "count":
-            cols[name] = _wrap(cnt_g, dt.ArrowType.INT64)
-        elif kind == "mean":
-            s = sums[id(col)][order].astype(jnp.float64)
-            cols[name] = _wrap(
-                s / jnp.maximum(cnt_g, 1).astype(jnp.float64), dt.ArrowType.FLOAT64
-            )
-        else:
-            s = sums[id(col)][order].astype(dt.info(col.dtype).numpy)
-            cols[name] = _wrap(s, col.dtype)
-    return RecordBatch(cols)
-
-
-def _hash_aggregate_partition(keys, aggregations, key_domain=None, value_bits=None):
-    """Dense-domain partitioned fast path for domains (4096, 2^22]:
-    class-split via block compactions + streaming region-MXU kernel
-    (`kernels/groupby_region.py`).  Returns None when the ranges disqualify
-    it (caller falls back to the sort path)."""
-    from .kernels.groupby_mxu import nlimbs_for_bits
-    from .kernels.groupby_region import SLOTS as RSLOTS
-
-    val_cols = []
-    col_ids = {}
-    for _name, col, _kind in aggregations:
-        if col is not None and id(col) not in col_ids:
-            col_ids[id(col)] = len(val_cols)
-            val_cols.append(col)
-    if key_domain is not None:
-        lo, hi = key_domain
-        if lo < 0 or hi <= RSLOTS or hi > (1 << 22):
-            return None
-        kmax = hi - 1
-        vmaxes = [(1 << (value_bits or 32)) - 1] * len(val_cols)
-    else:
-        rng = _range_check_program(len(val_cols))(
-            keys.data, *[c.data for c in val_cols]
-        )
-        kmin, kmax = int(rng[0]), int(rng[1])
-        vmaxes = [int(v) for v in rng[2 : 2 + len(val_cols)]]
-        vmins = [int(v) for v in rng[2 + len(val_cols) :]]
-        if kmin < 0 or kmax < RSLOTS or kmax >= (1 << 22) or any(
-            v < 0 for v in vmins
-        ):
-            return None
-    dom_bits = max(kmax, 1).bit_length()
-    n = int(keys.data.shape[0])
-    nlimbs = tuple(
-        nlimbs_for_bits(max(vmaxes[ci], 1).bit_length())
-        for ci in range(len(val_cols))
-    )
-    prog = _partition_groupby_program((n, keys.length, dom_bits, nlimbs or (1,)))
-    outs = prog(keys.data, *[c.data for c in val_cols])
-    count, sums_list = outs[0], outs[1:]
-    sums = {id(col): sums_list[ci] for ci, col in enumerate(val_cols)}
-
-    D = 1 << dom_bits
-    occupied = count > 0
-    num_groups = int(jnp.sum(occupied))
-    order = jnp.nonzero(occupied, size=D, fill_value=0)[0]
-    device = keys.device
-
-    from ..array.array import pad_len
-
-    live = lax.broadcasted_iota(jnp.int32, (D,), 0) < num_groups
-
-    def _wrap(buf, dtype):
-        buf = jnp.where(live, buf, jnp.zeros_like(buf))
-        buf = jnp.pad(buf, (0, pad_len(D) - D))
-        return make_array(buf, None, num_groups, dtype, device)
-
-    out_keys = order.astype(dt.info(keys.dtype).numpy)
-    cols: Dict[str, ArrowArrayBase] = {"key": _wrap(out_keys, keys.dtype)}
-    cnt_g = count[order].astype(jnp.int64)
-    for name, col, kind in aggregations:
-        if kind == "count":
-            cols[name] = _wrap(cnt_g, dt.ArrowType.INT64)
-        elif kind == "mean":
-            s = sums[id(col)][order].astype(jnp.float64)
-            cols[name] = _wrap(
-                s / jnp.maximum(cnt_g, 1).astype(jnp.float64),
-                dt.ArrowType.FLOAT64,
-            )
-        else:
-            s = sums[id(col)][order].astype(dt.info(col.dtype).numpy)
-            cols[name] = _wrap(s, col.dtype)
-    return RecordBatch(cols)
-
-
-# ---------------------------------------------------------------------------
-# radix-sorted group-by: sparse/huge domains beyond the partition gate (r5)
-# ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _radix_groupby_prep(spec: tuple):
-    (n, signed, agg_spec) = spec
-
-    def run(key_data, *val_bufs):
-        enc = lax.bitcast_convert_type(key_data, jnp.int32)
-        if signed:
-            enc = enc ^ jnp.int32(-0x80000000)
-        u = lax.bitcast_convert_type(enc, jnp.uint32)
-        sig = lax.reduce(u, jnp.uint32(0), lax.bitwise_or, (0,)) ^ lax.reduce(
-            u, jnp.uint32(0xFFFFFFFF), lax.bitwise_and, (0,)
-        )
-        planes = [enc] + [
-            v if v.dtype == jnp.int32 else lax.bitcast_convert_type(v, jnp.int32)
-            for v in val_bufs
-        ]
-        return tuple(planes), sig
-
-    return jax.jit(run)
-
-
-@functools.lru_cache(maxsize=None)
-def _radix_groupby_post(spec: tuple):
-    (n, signed, agg_spec) = spec
-
-    def run(bounds, parts):
-        from .kernels.radix import combine_parts
-
-        npl = len(parts) // (len(bounds) + 1)
-        r_ = len(parts) // npl
-        skey_enc, *svals = [
-            combine_parts(
-                tuple(parts[t * npl + p] for t in range(r_)), bounds, n
-            )
-            for p in range(npl)
-        ]
-        if signed:
-            skey_enc = skey_enc ^ jnp.int32(-0x80000000)
-        true_plane = jnp.ones((n,), jnp.bool_)
-        val_entries = []
-        vi = 0
-        dtypes = [d for a, d, _h in agg_spec if a != "count_all"]
-        for sv, ds in zip(svals, dtypes):
-            v = lax.bitcast_convert_type(sv, jnp.dtype(ds))
-            val_entries.append((v, true_plane))
-            vi += 1
-        return groupby_core(
-            skey_enc, true_plane, val_entries, agg_spec, dense=True,
-            presorted=True,
-        )
-
-    # chain stream buffers donated (see sort._radix_finish_program)
-    return jax.jit(run, donate_argnums=(1,))
-
-
-def _hash_aggregate_radix(keys, aggregations):
-    """Sort-path group-by with the O(log^2 n) lax.sort replaced by the
-    Pallas LSB radix chain (kernels/radix.py) — the route for key domains
-    beyond the partition gate (BASELINE's 100M-distinct config).  Dense
-    no-null full-buffer 32-bit keys only; returns None when ineligible."""
-    import os
-
-    n = int(keys.data.shape[0])
-    forced = os.environ.get("ARROW_TPU_FORCE_RADIX_AGG") == "1"
-    if (
-        (jax.default_backend() != "tpu" and not forced)
-        or (n < (1 << 26) and not forced)  # below ~64M the fused sort path wins
-        or n % 8192 != 0
-        or keys.validity is not None
-        or keys.length != n
-        or dt.item_size(keys.dtype) > 4
-    ):
-        return None
-    agg_spec = []
-    val_bufs: List = []
-    for name, col, kind in aggregations:
-        if kind not in AGG_KINDS:
-            return None
-        if col is None:
-            if kind != "count":
-                return None
-            agg_spec.append(("count_all", "", False))
-            continue
-        if (
-            len(col) != len(keys)
-            or col.validity is not None
-            or col.dtype is dt.ArrowType.BOOL
-            or dt.item_size(col.dtype) > 4
-        ):
-            return None
-        agg_spec.append((kind, str(jnp.dtype(col.data.dtype)), False))
-        val_bufs.append(col.data)
-    if 1 + len(val_bufs) > 8:
-        return None
-    from .kernels.radix import radix_sort_chain_parts
-
-    signed = dt.is_signed(keys.dtype)
-    spec = (n, bool(signed), tuple(agg_spec))
-    planes, sig = _radix_groupby_prep(spec)(keys.data, *val_bufs)
-    bits = [b for b in range(32) if (int(sig) >> b) & 1]
-    # crossover vs the fused lax.sort group-by (v5e, 134M): the chain wins
-    # below ~28 significant bits (14.8 ms/pass vs a ~600 ms lax.sort whose
-    # scans fuse for free); at full-width keys the lax path stays faster
-    # (905 vs 723 ms measured) — fall back there
-    if len(bits) > 28 and not forced:
-        return None
-    streams, bounds = radix_sort_chain_parts(planes, bits, n)
-    flat = tuple(p_ for st in streams for p_ in st)
-    del streams
-    outs = _radix_groupby_post(spec)(tuple(bounds), flat)
-    num_groups, out_keys, out_aggs = outs[0], outs[1], outs[2]
-    ng = int(num_groups)
-    device = keys.device
-    out_keys = lax.bitcast_convert_type(out_keys, dt.info(keys.dtype).numpy)
-
-    def _wrap(buf, dtype):
-        return make_array(buf, None, ng, dtype, device)
-
-    cols: Dict[str, ArrowArrayBase] = {"key": _wrap(out_keys, keys.dtype)}
-    for (name, col, kind), buf in zip(aggregations, out_aggs):
-        if kind == "count":
-            cols[name] = _wrap(buf, dt.ArrowType.INT64)
-        elif kind == "mean":
-            cols[name] = _wrap(buf, dt.ArrowType.FLOAT64)
-        else:
-            cols[name] = _wrap(buf, col.dtype)
-    return RecordBatch(cols)
-
-
 def hash_aggregate(
     keys: ArrowArrayBase,
     aggregations: Sequence[Tuple[str, Optional[ArrowArrayBase], str]],
     method: str = "auto",
-    key_domain: Optional[Tuple[int, int]] = None,
-    value_bits: Optional[int] = None,
 ) -> RecordBatch:
     """GROUP BY `keys` computing `aggregations`: (out_name, value_column, kind).
 
@@ -699,46 +203,13 @@ def hash_aggregate(
     counts rows per group.  Returns a RecordBatch with column "key" + one column
     per aggregation; group order = ascending key order.
 
-    method: "mxu" = the one-hot MXU kernel for dense keys in [0, 4096) with
-    non-negative integer values (kernels/groupby_mxu.py; ~15x the sort path at
-    134M); "partition" = class-split + streaming region-MXU kernel for dense
-    domains (4096, 2^22] (kernels/groupby_region.py; ~2x the sort path at 1M
-    keys); "sort" = the sort+segmented-scan program (any keys/values/nulls);
-    "auto" = mxu, else partition, else sort.
-
-    key_domain=(lo, hi): caller guarantee that keys lie in [lo, hi) and
-    values are non-negative (value_bits = max value bit width) — skips the
-    device range check and its host syncs on the mxu/partition paths.
+    method: "auto" or "sort" — both run the sort+segmented-scan program
+    (any keys, values and nulls).
     """
+    if method not in ("auto", "sort"):
+        raise OperationNotSupported(f"unknown group-by method {method!r}")
     if not dt.is_integer(keys.dtype) and keys.dtype is not dt.ArrowType.DATE32:
         raise OperationNotSupported(f"group-by key dtype {keys.dtype.value} unsupported")
-    if method in ("auto", "mxu") and _mxu_path_eligible(keys, aggregations):
-        out = _hash_aggregate_mxu(keys, aggregations, key_domain, value_bits)
-        if out is not None:
-            return out
-    if method == "mxu":
-        raise OperationNotSupported(
-            "mxu groupby requires dense keys in [0, 4096), non-negative "
-            "integer values and no nulls"
-        )
-    if method in ("auto", "partition") and _mxu_path_eligible(keys, aggregations):
-        out = _hash_aggregate_partition(keys, aggregations, key_domain, value_bits)
-        if out is not None:
-            return out
-    if method == "partition":
-        raise OperationNotSupported(
-            "partition groupby requires dense keys in (4096, 2^22], "
-            "non-negative integer values and no nulls"
-        )
-    if method in ("auto", "radix"):
-        out = _hash_aggregate_radix(keys, aggregations)
-        if out is not None:
-            return out
-    if method == "radix":
-        raise OperationNotSupported(
-            "radix groupby requires dense no-null full-buffer keys and "
-            "values of <= 32 bits on the TPU backend"
-        )
     agg_spec = []
     val_bufs: List = []
     for name, col, kind in aggregations:
@@ -762,7 +233,6 @@ def hash_aggregate(
         int(keys.data.shape[0]),
         keys.length,
         keys.validity is not None,
-        _merge_sort_ok(keys, [col for _n, col, _k in aggregations]),
         tuple(agg_spec),
     )
     prog = _groupby_program(spec)

@@ -1,10 +1,10 @@
 """Runtime configuration.
 
 The reference hard-codes its tuning constants (workgroup size 256 everywhere,
-`gpu_device.rs:304`; HighPerformance power preference `gpu_device.rs:51`).  The TPU
+`gpu_device.rs:304`; HighPerformance power preference `gpu_device.rs:51`).  This
 engine exposes them as a real config layer (SURVEY.md §5 "the build will need a real
-config layer") so mesh shape, tile sizes and shuffle buffering are tunable without
-code edits.
+config layer") so buffer padding, the mesh axis and profiling are settable
+without code edits.
 """
 
 from __future__ import annotations
@@ -16,30 +16,14 @@ import os
 @dataclasses.dataclass
 class Config:
     # --- layout ---
-    #: TPU vector lane count; last-dim tile of every 2-D kernel view.
-    lanes: int = 128
-    #: float32 sublane count; second-minor tile.
-    sublanes: int = 8
-    #: element padding unit for 1-D column buffers.  8192 = the Pallas
-    #: compaction/scan kernels' minimum block, so every column buffer is
-    #: directly eligible for the hand-written kernel tier (≤32KB waste/column).
+    #: element padding unit for 1-D column buffers: lengths round up to a
+    #: multiple of it, so one compiled program serves every length in a
+    #: bucket (at most 32 KB of padding per 4-byte column).
     pad_unit: int = 8192
-    #: bits per validity/bool word (Arrow bitmap packed into uint32 words).
-    word_bits: int = 32
-
-    # --- kernels ---
-    #: rows per Pallas grid step for streaming kernels (filter/sort/agg).
-    block_rows: int = 8 * 1024
-    #: radix sort digit width (bits per LSB pass).
-    radix_bits: int = 8
-    #: default VMEM budget per Pallas kernel, bytes.
-    vmem_limit_bytes: int = 96 * 1024 * 1024
 
     # --- distribution ---
     #: default data-partition mesh axis name.
     shard_axis: str = "x"
-    #: number of exchange buffers for shuffle double-buffering.
-    exchange_buffers: int = 2
 
     # --- misc ---
     #: collect per-op timing (the reference's `profile` cargo feature).

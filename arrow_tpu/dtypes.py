@@ -1,7 +1,7 @@
-"""Arrow dtype system for the TPU engine.
+"""Arrow dtype system for the engine.
 
-TPU-native re-design of the reference's dtype layer
-(`/root/reference/crates/array/src/array/mod.rs:40-50` ``ArrowType`` enum,
+Redesign of the reference's dtype layer
+(`crates/array/src/array/mod.rs:40-50` ``ArrowType`` enum,
 ``ArrowPrimitiveType``/``RustNativeType`` traits `mod.rs:52-101`, marker traits
 `types.rs:4-23`).  Where the reference maps each dtype to a WGSL shader tree and a
 buffer ITEM_SIZE, we map each dtype to a JAX dtype plus semantic flags that drive

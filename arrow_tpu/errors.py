@@ -1,4 +1,4 @@
-"""Error types (≙ ``ArrowErrorGPU``, `/root/reference/crates/array/src/lib.rs:10-14`)."""
+"""Error types (≙ ``ArrowErrorGPU``, `crates/array/src/lib.rs:10-14`)."""
 
 from __future__ import annotations
 

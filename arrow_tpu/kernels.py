@@ -1,5 +1,5 @@
 """Flat kernel namespace (≙ the umbrella crate's ``arrow_gpu::kernels``,
-`/root/reference/crates/arrow/src/kernels.rs:1-8`).
+`crates/arrow/src/kernels.rs:1-8`).
 
 Every op is available here in both eager (``foo``) and pipelined (``foo_op``)
 form, plus the ``*_dyn`` aliases of the reference's enum-dispatch functions.

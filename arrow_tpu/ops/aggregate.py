@@ -1,10 +1,10 @@
 """Aggregation kernels: sum (+ min/max/count extensions).
 
-TPU-native redesign of `/root/reference/crates/arithmetic/src/aggregate_kernels.rs`:
+Redesign of `crates/arithmetic/src/aggregate_kernels.rs`:
 the reference's multi-pass workgroup tree reduction (shared-memory 256 -> 1 per
 group, host loop relaunching until one element remains, `aggregate_kernels.rs:24-52`,
 shader `arithmetic/compute_shaders/f32/aggregate.wgsl`) is exactly what XLA's
-reduce emitter generates natively on TPU, so ``sum`` lowers to a single fused
+reduce emitter generates natively, so ``sum`` lowers to a single fused
 `jnp.sum` with padding lanes masked (the reference guards with ``arrayLength``).
 
 Semantics preserved: returns a 1-element array of the same dtype; the null

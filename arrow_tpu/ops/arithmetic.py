@@ -1,6 +1,6 @@
 """Arithmetic kernels: add/sub/mul/div/rem (array⊕array, array⊕scalar), neg, sum.
 
-TPU-native redesign of `/root/reference/crates/arithmetic/` (traits
+Redesign of `crates/arithmetic/` (traits
 `arithmetic_kernels.rs:18-75,178-223,270-280`, impl macros `lib.rs:11-96`, dyn
 registry `arithmetic_kernels.rs:122-267`): per-dtype WGSL shaders become one
 dtype-generic traced kernel per op; XLA fuses the op with its validity handling.

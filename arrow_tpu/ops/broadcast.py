@@ -1,10 +1,10 @@
 """Broadcast: scalar -> constant array of a given length.
 
-TPU-native redesign of the reference's ``Broadcast`` trait
-(`/root/reference/crates/array/src/kernels/broadcast.rs:6-17`; f32 impl
+Redesign of the reference's ``Broadcast`` trait
+(`crates/array/src/kernels/broadcast.rs:6-17`; f32 impl
 `f32_gpu.rs:13-37`, packed u8 `u8_gpu.rs:9-29`, boolean CPU-side fill
 `boolean_gpu.rs` broadcast): one fused ``jnp.full`` covers every dtype — the
-reference's 8/16-bit lane-packing trick is unnecessary on TPU.
+reference's 8/16-bit lane-packing trick is unnecessary here.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Cast kernels: dtype conversions and bit reinterpretation.
 
-TPU-native redesign of `/root/reference/crates/cast/` (``Cast``/``BitCast`` traits
+Redesign of `crates/cast/` (``Cast``/``BitCast`` traits
 `lib.rs:15-38`, `impl_cast` `lib.rs:40-88`, dyn registry `lib.rs:135-161` — 22
 pairs — plus bool->f32 `boolean_cast.rs:8-75` and u32->f32 bitcast `lib.rs:187-192`).
 

@@ -1,10 +1,10 @@
 """Comparison kernels: eq/gt/gteq/lt/lteq -> BooleanArray; elementwise min/max.
 
-TPU-native redesign of `/root/reference/crates/compare/` (traits `lib.rs:41-83`,
+Redesign of `crates/compare/` (traits `lib.rs:41-83`,
 blanket impl `lib.rs:142-172`, dyn registry `lib.rs:199-334`).  The reference's
 bit-packing via workgroup ``atomicOr`` into ``local_set_bits``
 (`compare/compute_shaders/f32/cmp.wgsl:14-31`) becomes a reshape + shift-dot pack
-that XLA fuses with the compare itself — no atomics on TPU.
+that XLA fuses with the compare itself — no atomics.
 
 Semantics: NaN compares false for every predicate (IEEE, tested by
 `compare/src/f32.rs:18-64`); comparing a null -> null (validity AND,

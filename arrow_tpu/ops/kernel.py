@@ -1,9 +1,9 @@
 """Op execution machinery: traceable kernels, registry, eager jit cache, dispatch.
 
-TPU-native replacement for the reference's dispatch plumbing:
+Replacement for the reference's dispatch plumbing:
 
 - the generic ``apply_{unary,scalar,binary,ternary,broadcast}_function`` helpers
-  (`/root/reference/crates/array/src/gpu_utils/gpu_device.rs:267-509`) become
+  (`crates/array/src/gpu_utils/gpu_device.rs:267-509`) become
   :class:`AV` transforms — pure functions over (data, validity) JAX buffers that can
   be traced, fused and jitted;
 - the compiled-shader cache keyed by (shader source, entry point)
@@ -13,7 +13,7 @@ TPU-native replacement for the reference's dispatch plumbing:
 - every op comes in eager (``foo``) and pipelined (``foo_op``) flavors like the
   reference (`arithmetic_kernels.rs:8-27`); the pipelined flavor records into a
   :class:`~arrow_tpu.runtime.pipeline.ComputePipeline` which traces the whole op
-  graph into ONE fused XLA program — the TPU answer to the reference's
+  graph into ONE fused XLA program — the answer to the reference's
   single-command-buffer submission (`compute_pipeline.rs:259-273`).
 """
 

@@ -1,11 +1,11 @@
 """Logical kernels: bitwise and/or/xor/not, shl/shr, any/all reductions.
 
-TPU-native redesign of `/root/reference/crates/logical/` (``LogicalType``
+Redesign of `crates/logical/` (``LogicalType``
 `lib.rs:22-26`, ``Logical`` trait `lib.rs:44-78`, dyn registry `lib.rs:214-349`,
 boolean impls `boolean.rs:45-146`).
 
 - Integer dtypes: native jnp bitwise ops (wrap/width semantics are exact).
-- Boolean arrays: ops run directly on the packed uint32 word buffers — the TPU
+- Boolean arrays: ops run directly on the packed uint32 word buffers — the
   equivalent of the reference routing booleans through its u32 shaders
   (`boolean.rs:45-104`) — 32 rows per lane op.  ``not`` re-masks the tail so the
   bits-beyond-length invariant holds.

@@ -1,6 +1,6 @@
 """Math kernels: abs, sqrt, cbrt, exp, exp2, log, log2, power.
 
-TPU-native redesign of `/root/reference/crates/math/` (traits `lib.rs:37-136`,
+Redesign of `crates/math/` (traits `lib.rs:37-136`,
 impls `lib.rs:195-237`, dyn registry `lib.rs:261-348`; shader entry points in
 `math/compute_shaders/f32/floatunary.wgsl`).
 

@@ -1,6 +1,6 @@
 """Swizzle routines: merge (select-by-mask), take (gather), put (scatter).
 
-TPU-native redesign of `/root/reference/crates/routines/` (``Swizzle`` trait
+Redesign of `crates/routines/` (``Swizzle`` trait
 `lib.rs:28-79`, impl `lib.rs:81-171`, merge validity pipeline `merge.rs:17-86`,
 take plumbing `take.rs:9-55`, put plumbing `put.rs:9-56`): WGSL gather/scatter
 shaders become XLA gather/scatter ops; the boolean bit-gather shader

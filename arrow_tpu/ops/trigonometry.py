@@ -1,6 +1,6 @@
 """Trigonometry kernels: sin, cos, acos, sinh.
 
-TPU-native redesign of `/root/reference/crates/trigonometry/` (traits
+Redesign of `crates/trigonometry/` (traits
 `lib.rs:22-83`, entry-point templating `lib.rs:85-137`, u8 impl
 `u8_kernel.rs:12-53`).  Integer inputs (u8/i8/u16/i16) return Float32 arrays —
 the reference's shaders unpack the lanes and convert to f32 in-kernel

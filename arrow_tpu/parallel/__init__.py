@@ -1,8 +1,8 @@
 """Distributed tier: mesh runtime, sharded batches, shuffle, distributed ops.
 
 Entirely net-new relative to the reference (SURVEY.md §2 absence statement);
-the TPU-native replacement for the missing NCCL/scheduler layer per the
-BASELINE.md north star.
+the replacement for the missing NCCL/scheduler layer per the BASELINE.md
+north star.
 """
 
 from .distributed_ops import (

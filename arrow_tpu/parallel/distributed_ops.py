@@ -541,12 +541,8 @@ def _fused_join_program(
     """ONE program: build-side exchange + probe-side exchange + local join +
     payload gather, giving XLA's scheduler BOTH sides' all-to-alls and sorts
     to interleave — the XLA-native form of the BASELINE "double-buffered
-    exchange overlapping probe compute".  Measured (tools/overlap_ab.py,
-    round 4): fused beats composed by 1.05x on the 8-virtual-device CPU mesh
-    (where the collectives are real HLO all-to-alls) and is a 0.96x wash on
-    a single real chip (nothing to overlap); true ICI-scale overlap remains
-    unmeasurable without multi-chip hardware — OVERLAP_AB*.json hold the A/B
-    numbers and per-kernel device-time traces."""
+    exchange overlapping probe compute".  `tools/overlap_ab.py` times it
+    against the composed (partition, partition, join) sequence."""
     from ..parallel.shuffle import shuffle_shard_local
 
     mesh = _MESHES[mesh_key]
@@ -794,7 +790,7 @@ def distributed_sort(
     -> local sort.  Shard s holds globally-ordered range s.  Null keys are
     unsupported (sort semantics of the bench configs: dense key+payload).
 
-    Send-bucket sizing (VERDICT r3 #7): by default the per-destination send
+    Send-bucket sizing: by default the per-destination send
     bucket is 4x the balanced share (cap / num_shards) — O(cap * skew) send
     tensors instead of O(P * cap) — and a key distribution the sampled
     splitters mis-balance past that bound triggers ONE automatic retry at

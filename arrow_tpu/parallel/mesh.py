@@ -2,8 +2,9 @@
 
 Net-new component (SURVEY.md §2 "Parallelism & distribution — explicit absence
 statement": the reference has exactly one `GpuDevice` and no collectives).  The
-TPU-native replacement for the missing NCCL/MPI layer is `jax.distributed` +
-`jax.sharding.Mesh` with XLA collectives over ICI/DCN (BASELINE.md north star).
+replacement for the missing NCCL/MPI layer is `jax.distributed` +
+`jax.sharding.Mesh` with XLA collectives, which XLA hands to NCCL on GPUs
+(BASELINE.md north star).
 """
 
 from __future__ import annotations
@@ -22,19 +23,11 @@ log = logging.getLogger("arrow_tpu")
 
 
 def smap(fn, mesh: Mesh, in_specs, out_specs):
-    """shard_map across jax versions (jax.shard_map vs experimental), with
-    replication checking off (programs here mix collectives and per-shard
-    data-dependent shapes)."""
-    try:
-        from jax import shard_map as _sm
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map as _sm
-    for kw in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return _sm(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **kw)
-        except TypeError:
-            continue
-    raise RuntimeError("no compatible shard_map signature")
+    """`jax.shard_map` with replication checking off (programs here mix
+    collectives and per-shard data-dependent shapes)."""
+    return jax.shard_map(
+        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
+    )
 
 
 def initialize_distributed(
@@ -69,8 +62,10 @@ def initialize_distributed(
 class MeshRuntime:
     """A 1-D data mesh over which tables are hash-partitioned.
 
-    The partition axis (default name from config.shard_axis) rides ICI within a
-    host and DCN across hosts; XLA inserts the collectives.
+    The partition axis (default name from config.shard_axis) spans every
+    device; on one host's GPUs every card reaches every other over NVLink at
+    the same rate, so the mesh follows the algorithm alone.  XLA inserts the
+    collectives.
     """
 
     mesh: Mesh

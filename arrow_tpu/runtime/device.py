@@ -1,10 +1,10 @@
 """Device management.
 
-TPU-native replacement for the reference's ``GpuDevice``
-(`/root/reference/crates/array/src/gpu_utils/gpu_device.rs:29-84`): adapter/queue
+Replacement for the reference's ``GpuDevice``
+(`crates/array/src/gpu_utils/gpu_device.rs:29-84`): adapter/queue
 acquisition becomes JAX platform/device selection; explicit buffer create/upload/
 readback (`gpu_device.rs:171-265`) becomes `jax.device_put` / `np.asarray` with
-XLA managing the HBM allocator; the compiled-pipeline cache keyed by shader source
+XLA managing the device allocator; the compiled-pipeline cache keyed by shader source
 (`gpu_device.rs:145-168`, `append_hashmap.rs:9-34`) becomes the lru jit caches in
 `arrow_tpu.ops.kernel` (`_eager_jit`) and `arrow_tpu.runtime.pipeline` (graph
 signature cache).
@@ -27,7 +27,7 @@ log = logging.getLogger("arrow_tpu")
 
 
 class Device:
-    """A compute device handle (one JAX device, usually a TPU chip)."""
+    """A compute device handle (one JAX device, usually a GPU)."""
 
     def __init__(self, jax_device: Optional[jax.Device] = None):
         if jax_device is None:
@@ -38,10 +38,6 @@ class Device:
     @property
     def platform(self) -> str:
         return self.jax_device.platform
-
-    @property
-    def is_tpu(self) -> bool:
-        return self.platform == "tpu"
 
     # --- buffer management (≙ gpu_device.rs:171-265) -----------------------
 

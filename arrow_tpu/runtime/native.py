@@ -1,7 +1,7 @@
 """Bindings to the C++ host runtime (csrc/host_runtime.cpp), with numpy fallback.
 
 The reference's host tier is native Rust: the CPU packing loop of
-``from_optional_slice`` (`/root/reference/crates/array/src/array/primitive_array_gpu.rs:33-43`)
+``from_optional_slice`` (`crates/array/src/array/primitive_array_gpu.rs:33-43`)
 and the bit builder (`null_bit_buffer.rs:10-62`).  Our host tier is C++ exposed via
 ctypes: a single pass over a Python sequence of optionals producing the dense value
 buffer + validity mask, which is the hot host-side loop on the upload path.

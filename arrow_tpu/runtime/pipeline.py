@@ -1,7 +1,7 @@
 """Lazy compute pipeline: record ops, trace once, run as ONE fused XLA program.
 
-TPU-native redesign of ``ArrowComputePipeline``
-(`/root/reference/crates/array/src/gpu_utils/compute_pipeline.rs:8-12`): the
+Redesign of ``ArrowComputePipeline``
+(`crates/array/src/gpu_utils/compute_pipeline.rs:8-12`): the
 reference appends one compute pass per op to a single ``CommandEncoder`` and
 submits once in ``finish()`` (`compute_pipeline.rs:259-273`), which amortizes
 launch overhead but cannot fuse kernels.  Here ``record`` appends a node to an

@@ -1,8 +1,8 @@
 """Per-op profiling (≙ the reference's ``CmpQuery`` GPU timestamp queries,
-`/root/reference/crates/array/src/gpu_utils/compute_query.rs`, behind its
+`crates/array/src/gpu_utils/compute_query.rs`, behind its
 `profile` cargo feature).
 
-On TPU the analog of per-pass timestamp queries is wall-clock timing around
+The analog of per-pass timestamp queries is wall-clock timing around
 ``block_until_ready`` plus `jax.profiler` traces for intra-program detail.
 Enable with ARROW_TPU_PROFILE=1 or ``config.profile = True``; timings accumulate
 in a process-wide log (the reference logs ms per pass, `compute_query.rs:71-74`).
@@ -75,7 +75,7 @@ def device_report(fn, *args, top: int = 25, logdir: str | None = None):
     """Run ``fn(*args)`` once under a `jax.profiler` trace and return
     per-kernel DEVICE times aggregated by XLA op/fusion name.
 
-    The TPU analog of the reference's per-pass GPU timestamp queries
+    The analog of the reference's per-pass GPU timestamp queries
     (`compute_query.rs:37-75`): where wgpu resolves two timestamps per
     compute pass, the trace's device plane carries one event per executed
     XLA kernel; this parses them programmatically (jax.profiler.ProfileData)
@@ -104,7 +104,7 @@ def device_report(fn, *args, top: int = 25, logdir: str | None = None):
     for f in files[-1:]:
         pd = ProfileData.from_file(f)
         for plane in pd.planes:
-            is_dev = "TPU" in plane.name or "GPU" in plane.name
+            is_dev = "GPU" in plane.name
             # CPU runs execute XLA thunks on tf_XLA* client threads
             is_cpu_xla = plane.name == "/host:CPU"
             if not (is_dev or is_cpu_xla):

@@ -6,8 +6,8 @@ buffer viewed as bytes is exactly Arrow's validity-buffer byte layout, so host
 round-trips are zero-cost reinterprets.
 
 This replaces the reference's CPU-side ``BooleanBufferBuilder``
-(`/root/reference/crates/array/src/array/null_bit_buffer.rs:10-62`) and its WGSL
-atomicOr bit-packing shaders (`compare/compute_shaders/f32/cmp.wgsl:14-31`): on TPU
+(`crates/array/src/array/null_bit_buffer.rs:10-62`) and its WGSL
+atomicOr bit-packing shaders (`compare/compute_shaders/f32/cmp.wgsl:14-31`): here
 pack/unpack are expressed as reshapes + integer dot/shift ops that XLA fuses into
 the surrounding elementwise program — no atomics needed.
 

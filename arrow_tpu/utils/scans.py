@@ -1,10 +1,8 @@
-"""Scan/partition primitives chosen for TPU cost realities.
+"""Scan/partition primitives shared by the operator tier.
 
-Measured on-chip (v5e, 4M rows): XLA scatter ~24ms, random gather ~36ms,
-stable 2-operand sort ~8ms, scans ~0.05ms.  Therefore every compaction here is
-expressed as a stable sort on a 0/1 partition key (selected rows first, original
-order preserved) and every segment reduction as a segmented associative scan —
-no scatters, no large gathers.
+Every compaction here is a stable sort on a 0/1 partition key (selected rows
+first, original order preserved), and every segment reduction a segmented
+scan built from log2(n) fused shift+combine passes.
 """
 
 from __future__ import annotations
@@ -18,8 +16,9 @@ import jax.numpy as jnp
 def stable_partition(flags: jnp.ndarray, operands: Sequence[jnp.ndarray]):
     """Move rows where flags=True to the front (stable), carrying operands.
 
-    Returns the list of permuted operands.  This is the TPU-native compaction:
-    one fused multi-operand stable sort on a 1-bit key.
+    Returns the list of permuted operands: one fused multi-operand stable
+    sort on a 1-bit key.  Unselected rows follow the selected ones in their
+    original order; callers that need a zeroed tail mask it themselves.
     """
     rank = (~flags).astype(jnp.int32)
     out = lax.sort([rank, *operands], num_keys=1, is_stable=True)
@@ -27,25 +26,13 @@ def stable_partition(flags: jnp.ndarray, operands: Sequence[jnp.ndarray]):
 
 
 def segmented_scan(
-    vals: jnp.ndarray, starts: jnp.ndarray, combine: Callable, op: str = None
+    vals: jnp.ndarray, starts: jnp.ndarray, combine: Callable
 ) -> jnp.ndarray:
     """Inclusive scan of `vals` with `combine`, restarting at rows where
     `starts` is True.
 
-    When `op` names the combine ("add"/"max"/"min"/"first") and the input is
-    Pallas-eligible on TPU, this runs the single-pass streaming kernel
-    (`compute.kernels.segscan`) — one HBM read+write instead of log2(n)
-    elementwise passes (measured 4.7x at 16M rows).  Otherwise: the classic
-    Hillis-Steele segmented scan, log2(n) fused shift+combine passes.  (The
-    tempting third option — `lax.associative_scan` with a (value, flag) pair
-    operator — lowers to a pair-carrying reduce-window whose scoped-VMEM
-    allocation exceeds the TPU's 16MB limit for multi-million-row inputs.)
+    Hillis-Steele segmented scan: log2(n) fused shift+combine passes.
     """
-    if op is not None:
-        from ..compute.kernels.segscan import scan_supported, segmented_scan_pallas
-
-        if scan_supported(vals, op):
-            return segmented_scan_pallas(vals, starts, op)
     n = vals.shape[0]
     idx = lax.broadcasted_iota(jnp.int32, (n,), 0)
     v, f = vals, starts
@@ -61,32 +48,8 @@ def segmented_scan(
     return v
 
 
-def segment_broadcast_first(vals: jnp.ndarray, starts: jnp.ndarray) -> jnp.ndarray:
-    """Every row takes the value `vals` has at its segment's first row."""
-    return segmented_scan(vals, starts, lambda a, b: a)
-
-
-def segment_broadcast_last(vals: jnp.ndarray, ends: jnp.ndarray) -> jnp.ndarray:
-    """Every row takes the value `vals` has at its segment's last row."""
-    return jnp.flip(segmented_scan(jnp.flip(vals), jnp.flip(ends), lambda a, b: a))
-
-
 def shift_cummax(v: jnp.ndarray, reverse: bool = False) -> jnp.ndarray:
-    """Cumulative max as log2(n) fused shift+max passes.
-
-    `lax.cummax` lowers through a reduce-window whose scoped-VMEM allocation
-    exceeds the TPU's 16MB limit at multi-million-row sizes (same failure mode
-    as `lax.associative_scan`, see `segmented_scan`); the explicit log-shift
-    ladder has no such allocation and fuses into plain elementwise passes.
-    On TPU at Pallas-eligible sizes the single-pass streaming kernel runs
-    instead (reverse = flip in, scan, flip out — two cheap reverses).
-    """
-    from ..compute.kernels.segscan import scan_supported, segmented_scan_pallas
-
-    if scan_supported(v, "max"):
-        if reverse:
-            return jnp.flip(segmented_scan_pallas(jnp.flip(v), None, "max"))
-        return segmented_scan_pallas(v, None, "max")
+    """Cumulative max as log2(n) fused shift+max passes."""
     n = v.shape[0]
     idx = lax.broadcasted_iota(jnp.int32, (n,), 0)
     d = 1
@@ -98,23 +61,9 @@ def shift_cummax(v: jnp.ndarray, reverse: bool = False) -> jnp.ndarray:
     return v
 
 
-def prefix_sum(v: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive prefix sum; single-pass Pallas kernel on TPU when eligible
-    (jnp.cumsum is a safe fallback at these dtypes, but costs log-depth)."""
-    from ..compute.kernels.segscan import scan_supported, segmented_scan_pallas
-
-    if scan_supported(v, "add"):
-        return segmented_scan_pallas(v, None, "add")
-    return jnp.cumsum(v)
-
-
 def sort_limbs(keys: jnp.ndarray) -> list:
     """Decompose an integer key column into <=32-bit sort keys, high limb
     first, so multi-key `lax.sort` orders identically to the 64-bit compare.
-
-    TPU lanes are 32-bit; sorting emulated 64-bit comparators both costs ~2x
-    and crashes some deployment toolchains — limb columns are the TPU-native
-    layout for wide keys.
     """
     if keys.dtype == jnp.uint64:
         w = lax.bitcast_convert_type(keys, jnp.uint32)  # (n, 2): lo, hi
@@ -136,93 +85,3 @@ def segment_ends(starts: jnp.ndarray, n_valid) -> jnp.ndarray:
     in_range = idx < n_valid
     is_last = idx == (n_valid - 1)
     return in_range & (nxt | is_last)
-
-
-def compact_rows(flags: jnp.ndarray, operands: Sequence[jnp.ndarray]):
-    """Stable-compact rows where `flags` is True to the front of each operand.
-
-    Like `stable_partition` but routed: on TPU at Pallas-eligible sizes it
-    runs the block-compaction kernel (`compute.kernels.compaction3`) — one
-    streaming HBM pass instead of a full stable sort.  32-bit planes ride
-    natively; 64-bit planes ride as interleaved u32 limbs on a bit-doubled
-    mask (the stable network keeps limb pairs adjacent).  The Pallas kernel
-    zeroes rows >= count in-kernel; the sort fallback leaves the unselected
-    rows at the back — callers needing the zero invariant mask for
-    themselves (groupby_core does).
-    """
-    import jax
-
-    n = flags.shape[0]
-    if jax.default_backend() != "tpu" or n % 8192 != 0:
-        return stable_partition(flags, operands)
-    from ..compute.filter import _spread_mask_words
-    from ..compute.kernels.compaction3 import compact_multi_pallas
-    from . import bits as B
-
-    select = B.pack_bits(flags)
-    outs = [None] * len(operands)
-    v32, v64 = [], []
-    for i, p in enumerate(operands):
-        if p.dtype.itemsize == 8:
-            v64.append((i, lax.bitcast_convert_type(p, jnp.uint32).reshape(-1)))
-        else:
-            v32.append((i, p))
-    GROUP = 8  # planes per kernel call (VMEM window budget)
-    while v32:
-        chunk, v32 = v32[:GROUP], v32[GROUP:]
-        res, _, _ = compact_multi_pallas(tuple(p for _, p in chunk), (), select)
-        for (i, _), o in zip(chunk, res):
-            outs[i] = o[:n]
-    if v64:
-        select2 = _spread_mask_words(select)
-        while v64:
-            chunk, v64 = v64[:GROUP], v64[GROUP:]
-            res, _, _ = compact_multi_pallas(tuple(p for _, p in chunk), (), select2)
-            for (i, _), o in zip(chunk, res):
-                outs[i] = lax.bitcast_convert_type(
-                    o[: 2 * n].reshape(n, 2), operands[i].dtype
-                )
-    return outs
-
-
-def merge_lex_sort(limbs: Sequence[jnp.ndarray], payloads: Sequence[jnp.ndarray],
-                   length=None):
-    """Stable lexicographic sort by 32-bit limb keys (most-significant first)
-    on the Pallas streaming merge kernel, payload planes riding along.
-
-    LSD composition: one stable single-key merge sort per limb, least
-    significant first — stable passes compose into the lexicographic order,
-    which is how wide keys sort on 32-bit TPU lanes without emulated 64-bit
-    comparators.  Returns [sorted limbs..., sorted payloads...].
-    """
-    from ..compute.kernels.merge import sort_kv_pallas
-
-    arrs = list(limbs) + list(payloads)
-    nl = len(limbs)
-    for ki in range(nl - 1, -1, -1):
-        key = arrs[ki]
-        rest = arrs[:ki] + arrs[ki + 1:]
-        k_out, outs = sort_kv_pallas(key, tuple(rest), length=length)
-        arrs = list(outs[:ki]) + [k_out] + list(outs[ki:])
-    return arrs
-
-
-def merge_sort_ok(*key_arrays) -> bool:
-    """Whether `merge_lex_sort` should run: opt-in via ARROW_TPU_FORCE_MERGE=1
-    only (measured slower than fused multi-operand lax.sort at 128M on v5e —
-    see compute/sort.py::_merge_eligible), plus Pallas-eligible lengths and
-    32-bit-decomposable integer keys."""
-    import os
-
-    import jax  # noqa: F401  (kept for future backend-conditional gating)
-
-    if os.environ.get("ARROW_TPU_FORCE_MERGE") != "1":
-        return False
-    for k in key_arrays:
-        if k.shape[0] % 8192 != 0 or k.shape[0] == 0:
-            return False
-        # f32 keys would ride merge_lex_sort's integer LSD limb composition
-        # untested (join keys are integer-gated upstream) — not accepted here
-        if k.dtype not in (jnp.int32, jnp.uint32, jnp.int64, jnp.uint64):
-            return False
-    return True

@@ -2,7 +2,7 @@
 //
 // Native host-side tier mirroring the reference's Rust host code: the
 // bit-packing loops of BooleanBufferBuilder
-// (/root/reference/crates/array/src/array/null_bit_buffer.rs:10-62) and the
+// (crates/array/src/array/null_bit_buffer.rs:10-62) and the
 // from_optional_slice upload path (primitive_array_gpu.rs:22-55).  Exposed via
 // a plain C ABI consumed through ctypes (arrow_tpu/runtime/native.py).
 //

@@ -1,4 +1,4 @@
-"""Canonical user-facing flow (≙ `/root/reference/examples/simple.rs:12-77`):
+"""Canonical user-facing flow (≙ `examples/simple.rs:12-77`):
 eager ops, then the same expression as one pipelined (fused) program."""
 
 import numpy as np

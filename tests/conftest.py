@@ -1,7 +1,7 @@
 """Test fixture: force the CPU platform with 8 virtual devices.
 
 ≙ the reference CI installing mesa software Vulkan (lavapipe) to run real WGSL
-kernels without a GPU (`/root/reference/.github/workflows/ci.yml:17-21`); here the
+kernels without a GPU (the reference's `.github/workflows/ci.yml:17-21`); here the
 same trick is `--xla_force_host_platform_device_count=8` so sharding/mesh tests
 exercise real XLA collectives on 8 virtual CPU devices (SURVEY.md §4).
 """

@@ -1,5 +1,5 @@
 """Assertion helpers (≙ the reference's test-macro crate
-`/root/reference/crates/test_macros/src/lib.rs`): each helper checks BOTH the
+`crates/test_macros/src/lib.rs`): each helper checks BOTH the
 typed path and the `_dyn` path (`lib.rs:33-51`), with NaN/±inf-aware float
 comparison at 0.01 tolerance (`lib.rs:88-117`)."""
 

@@ -1,4 +1,4 @@
-"""Arithmetic kernel tests, mirroring `/root/reference/crates/arithmetic/src/`
+"""Arithmetic kernel tests, mirroring `crates/arithmetic/src/`
 inline tests (f32.rs, u32.rs, i32.rs, u16.rs): wrapping semantics, null
 propagation, scalar vs array forms, sum reduction."""
 

@@ -1,6 +1,6 @@
 """Array layer tests: construction, readback, nulls, clone, bitmap utilities.
 
-Mirrors the inline tests of `/root/reference/crates/array/src/array/`
+Mirrors the inline tests of `crates/array/src/array/`
 (primitive_array_gpu.rs, boolean_gpu.rs, null_bit_buffer.rs).
 """
 

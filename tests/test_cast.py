@@ -1,4 +1,4 @@
-"""Cast kernel tests mirroring `/root/reference/crates/cast/src/lib.rs` inline
+"""Cast kernel tests mirroring `crates/cast/src/lib.rs` inline
 tests and `docs/src/kernels/cast.md` caveats."""
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Compare kernel tests mirroring `/root/reference/crates/compare/src/` inline
+"""Compare kernel tests mirroring `crates/compare/src/` inline
 tests — NaN/±inf matrix from `compare/src/f32.rs:18-64`, all dtypes, min/max."""
 
 import numpy as np

@@ -311,44 +311,3 @@ def test_lex_sort():
     assert keys_d[0].values() == [2, 2, 1, 1]
     assert keys_d[1].values() == [5, 3, 9, 7]
 
-
-def test_join_merge_emit_path(monkeypatch):
-    """The gather-free merge-expand emit (TPU fast path) against the legacy
-    emit, forced through interpret mode on a small case."""
-    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "merge")
-    rng = np.random.default_rng(21)
-    bk = rng.integers(0, 40, 300).astype(np.uint64)
-    pk = rng.integers(0, 40, 500).astype(np.uint64)
-    pi, bi, t = C.join_indices(
-        at.UInt64Array.from_slice(bk), at.UInt64Array.from_slice(pk)
-    )
-    monkeypatch.setenv("ARROW_TPU_JOIN_EMIT", "legacy")
-    pi2, bi2, t2 = C.join_indices(
-        at.UInt64Array.from_slice(bk), at.UInt64Array.from_slice(pk)
-    )
-    assert t == t2
-    got = sorted(zip(pi.values(), bi.values()))
-    exp = sorted(zip(pi2.values(), bi2.values()))
-    assert got == exp
-
-
-def test_join_plan_narrowing_matches():
-    """Adaptive u64->u32 key narrowing: the narrowed plan program computes
-    the same totals/lists as the wide one."""
-    import jax.numpy as jnp
-
-    from arrow_tpu.compute.join import _join_plan
-
-    rng = np.random.default_rng(5)
-    nb = np_ = 8192
-    bk = jnp.asarray(rng.integers(0, 1000, nb).astype(np.uint64))
-    pk = jnp.asarray(rng.integers(0, 1000, np_).astype(np.uint64))
-    tw, mw, sw, ew, pw, lw = _join_plan(
-        (nb, nb, False, np_, np_, False, False), bk, None, pk, None
-    )
-    tn, mn, sn, en, pn, ln = _join_plan(
-        (nb, nb, False, np_, np_, False, True), bk, None, pk, None
-    )
-    assert int(tw) == int(tn) and int(mw) == int(mn)
-    np.testing.assert_array_equal(np.asarray(ew), np.asarray(en))
-    np.testing.assert_array_equal(np.asarray(lw), np.asarray(ln))

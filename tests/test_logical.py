@@ -1,4 +1,4 @@
-"""Logical kernel tests mirroring `/root/reference/crates/logical/src/` inline
+"""Logical kernel tests mirroring `crates/logical/src/` inline
 tests: bitwise ops on ints and packed booleans, shifts, any/all."""
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Math + trigonometry kernel tests mirroring `/root/reference/crates/math/` and
+"""Math + trigonometry kernel tests mirroring `crates/math/` and
 `crates/trigonometry/` inline tests."""
 
 import math

@@ -170,7 +170,7 @@ def test_distributed_sort(rt):
 
 
 def test_skewed_shuffle_default_auto_retry(rt):
-    """VERDICT r3 #7: skew-safe sizing is the DEFAULT — an all-one-shard
+    """Skew-safe sizing is the DEFAULT — an all-one-shard
     distribution under default arguments must succeed via the automatic
     full-bucket retry, not raise; and the first-attempt send tensor must be
     histogram-bounded (O(cap * 4), not O(P * cap))."""
@@ -279,7 +279,7 @@ def test_distributed_join_fused_matches_unfused(rt):
 
 
 def test_shuffle_and_sort_sub32bit_columns(rt):
-    """Code-review r3: the fused u32-plane exchange must carry sub-32-bit
+    """The fused u32-plane exchange must carry sub-32-bit
     columns (astype widening, not bitcast — bitcast raises on width change)."""
     rng = np.random.default_rng(12)
     n = 4000
@@ -306,7 +306,7 @@ def test_shuffle_and_sort_sub32bit_columns(rt):
 
 
 def test_distributed_sort_all_equal_keys(rt):
-    """Code-review r3: the default send bucket must hold ANY distribution
+    """The default send bucket must hold ANY distribution
     (all rows routed to one destination must not overflow or truncate)."""
     n = 4096
     keys = np.full(n, 7, np.uint32)

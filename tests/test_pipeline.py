@@ -1,5 +1,5 @@
 """ComputePipeline tests: the `examples/simple.rs` flow, fusion of chained ops,
-program caching, broadcast (≙ `/root/reference/examples/simple.rs:12-77`)."""
+program caching, broadcast (≙ `examples/simple.rs:12-77`)."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""Swizzle tests mirroring `/root/reference/crates/routines/src/` inline tests,
+"""Swizzle tests mirroring `crates/routines/src/` inline tests,
 including the 4-way merge validity vectors from `routines/src/bool.rs:136-187`."""
 
 import numpy as np

@@ -61,7 +61,7 @@ def test_profiler():
 
 def test_device_api():
     d = at.default_device()
-    assert d.platform in ("cpu", "tpu")
+    assert d.platform in ("cpu", "gpu")
     buf = d.put(np.float32([1, 2, 3]))
     np.testing.assert_array_equal(d.get(buf), np.float32([1, 2, 3]))
     d.synchronize()
@@ -69,11 +69,11 @@ def test_device_api():
 
 
 def test_config():
-    assert at.config.lanes == 128
-    old = at.config.block_rows
-    at.set_config(block_rows=4096)
-    assert at.config.block_rows == 4096
-    at.set_config(block_rows=old)
+    assert at.config.shard_axis == "x"
+    old = at.config.pad_unit
+    at.set_config(pad_unit=4096)
+    assert at.config.pad_unit == 4096
+    at.set_config(pad_unit=old)
     with pytest.raises(AttributeError):
         at.set_config(bogus=1)
 
@@ -93,11 +93,24 @@ def test_example_flows_run():
     mod.run_operator_tier()
 
 
-def test_native_host_runtime_if_built():
+@pytest.fixture
+def native_built(monkeypatch):
+    """Build the C++ host runtime (`make -C csrc`) and load it afresh."""
+    import os
+    import subprocess
+
     from arrow_tpu.runtime import native
 
-    if not native.have_native():
-        pytest.skip("csrc not built")
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+    subprocess.run(["make", "-s", "-C", csrc], check=True, timeout=300)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_LIB_TRIED", False)
+    return native
+
+
+def test_native_host_runtime_if_built(native_built):
+    native = native_built
+    assert native.have_native()
     import numpy as np
 
     mask = np.random.default_rng(1).random(999) < 0.3

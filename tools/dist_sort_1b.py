@@ -1,10 +1,6 @@
-"""1B-row distributed sort CORRECTNESS run on the 8-virtual-device CPU mesh
-(VERDICT r4 #8: "a virtual-mesh 1B-row distributed sort correctness run").
+"""1B-row distributed sort CORRECTNESS run on the 8-virtual-device CPU mesh.
 
-The 1B-row BASELINE sort config cannot fit one v5e chip (HBM math in
-bench.py::sort_512m: 1B x u32 k+v needs ~17.2 GB of radix-chain state alone
-vs 16 GB HBM), so 1B is inherently the N-host configuration.  Real N>=2 TPU
-hosts are unreachable from this environment; this runs the SAME
+The 1B-row BASELINE sort config is an N-device configuration; this runs the
 `distributed_sort` program — sampled splitters, range-partition all-to-all,
 local sorts — over 8 virtual CPU devices at 2^27 rows/shard (2^30 ~ 1.07B
 rows total) and verifies:
@@ -137,8 +133,7 @@ def main() -> None:
         "key_checksum_ok": ksum_out == ksum_in,
         "with_payload": with_payload,
         "note": "correctness run on 8 virtual CPU devices; the 1B config is "
-        "the N-host deployment shape (single-chip HBM math in bench.py). "
-        "The k+v variant of this CPU simulation needs >125 GB host RAM "
+        "the N-device deployment shape. The k+v variant of this CPU simulation needs >125 GB host RAM "
         "(oom-killed at 130 GB RSS) while the real N-chip config is ~8 GB "
         "of data; key-only exercises the identical program shape.",
     }
